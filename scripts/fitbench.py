@@ -1,7 +1,7 @@
 """BASELINE config 4 on real hardware: fit ~100k Gaussians against
 multiview targets for a few hundred steps; record the loss/PSNR curve and
-median step time (VERDICT r3 next #7 — the realized reference stub
-``/root/reference/src/rtgs/solver.py:22-42`` at production scale).
+median step time (the realized reference stub ``solver.py:22-42`` at
+production scale).
 
 Self-supervised protocol (no external dataset in the image): render
 ground-truth views of a structured 100k scene, perturb the parameters,
@@ -40,14 +40,14 @@ def main():
     args = ap.parse_args()
     res = tuple(int(x) for x in args.res.split(","))
 
-    from rtgs_tpu.utils.platform import enable_compilation_cache
+    from rtgs_jax.utils.platform import enable_compilation_cache
     enable_compilation_cache()
-    from rtgs_tpu.camera import camera_from_fov
-    from rtgs_tpu.config import TrainConfig
-    from rtgs_tpu.scene import random_scene
-    from rtgs_tpu.train.datasets import synthetic_orbit_dataset
-    from rtgs_tpu.train.solver import (Solver, init_params)
-    from rtgs_tpu.viewer.orbit import orbit_camera_pose
+    from rtgs_jax.camera import camera_from_fov
+    from rtgs_jax.config import TrainConfig
+    from rtgs_jax.scene import random_scene
+    from rtgs_jax.train.datasets import synthetic_orbit_dataset
+    from rtgs_jax.train.solver import (Solver, init_params)
+    from rtgs_jax.viewer.orbit import orbit_camera_pose
 
     render_kw = dict(max_candidates=args.cand, max_global=128)
     print(f"backend={jax.default_backend()} n={args.n} res={res} "

@@ -18,15 +18,11 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rtgs_tpu.utils.platform import force_cpu_devices
-
-force_cpu_devices(1)
-
 import jax.numpy as jnp
 import numpy as np
 
-from rtgs_tpu.gaussians import Gaussians
-from rtgs_tpu.scene import save_scene
+from rtgs_jax.gaussians import Gaussians
+from rtgs_jax.scene import save_scene
 
 
 def structured_scene(n: int, seed: int = 0) -> Gaussians:

@@ -1,10 +1,11 @@
-"""Capture a jax.profiler trace of one training step on the chip.
+"""Capture a jax.profiler trace of training steps on the GPU.
 
 Writes a Perfetto/XPlane trace directory and prints a compact summary so
-the step composition (binning / kernel / bwd / optimizer) is inspectable
-offline. Artifact for BASELINE "train-step timing" (VERDICT r2 next #4).
+the step composition (binning / keys kernel / bwd / optimizer) is
+inspectable offline.
 
 Usage: python scripts/trace_step.py [n] [steps] [outdir]
+(outdir defaults to bench_out/rtgs_trace in the checkout)
 """
 
 from __future__ import annotations
@@ -25,22 +26,26 @@ import numpy as np
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-    outdir = sys.argv[3] if len(sys.argv) > 3 else "/tmp/rtgs_trace"
+    outdir = sys.argv[3] if len(sys.argv) > 3 else os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "bench_out", "rtgs_trace")
 
-    from rtgs_tpu.utils.platform import enable_compilation_cache
+    from rtgs_jax.utils.platform import enable_compilation_cache
     enable_compilation_cache()
-    from rtgs_tpu.config import TrainConfig
-    from rtgs_tpu.scene import random_scene
-    from rtgs_tpu.train.datasets import synthetic_orbit_dataset
-    from rtgs_tpu.train.solver import Solver, init_params
+    from rtgs_jax.config import TrainConfig
+    from rtgs_jax.scene import random_scene
+    from rtgs_jax.train.datasets import synthetic_orbit_dataset
+    from rtgs_jax.train.solver import Solver, init_params
 
     g = random_scene(jax.random.PRNGKey(0), n, extent=2.0,
                      scale_range=(0.005, 0.03))
     ds = synthetic_orbit_dataset(g, 4, (256, 256), fov=60.0, radius=5.0,
-                                 depth=8, renderer="pallas")
+                                 depth=8, renderer="keys",
+                                 max_candidates=1536)
     solver = Solver(params=init_params(g), mask=g.mask, cfg=TrainConfig(),
                     cameras=ds.cameras, targets=ds.images, depth=8,
-                    renderer="pallas")
+                    renderer="keys",
+                    render_kwargs=dict(max_candidates=1536))
 
     # Warm: compile fwd+bwd+optimizer outside the trace window.
     t0 = time.time()

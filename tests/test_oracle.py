@@ -7,15 +7,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rtgs_tpu import gaussians as G
-from rtgs_tpu.camera import new_camera
-from rtgs_tpu.rays import new_rays
-from rtgs_tpu.render.oracle import (
+from rtgs_jax import gaussians as G
+from rtgs_jax.camera import new_camera
+from rtgs_jax.rays import new_rays
+from rtgs_jax.render.oracle import (
     composite_rays,
     render_oracle,
     render_peeled_reference,
 )
-from rtgs_tpu.scene import pad_scene, random_scene
+from rtgs_jax.scene import pad_scene, random_scene
 
 
 def _single_gaussian_expected(opacity, color, t_mid=None):

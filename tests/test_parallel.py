@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rtgs_tpu.parallel.mesh import PRIMS_AXIS, RAYS_AXIS, make_mesh
-from rtgs_tpu.parallel.render import render_sharded, shard_scene
-from rtgs_tpu.rays import new_rays
-from rtgs_tpu.render.oracle import composite_rays
-from rtgs_tpu.scene import pad_scene, random_scene
+from rtgs_jax.parallel.mesh import PRIMS_AXIS, RAYS_AXIS, make_mesh
+from rtgs_jax.parallel.render import render_sharded, shard_scene
+from rtgs_jax.rays import new_rays
+from rtgs_jax.render.oracle import composite_rays
+from rtgs_jax.scene import pad_scene, random_scene
 
 
 def _rays(n, key):
@@ -75,8 +75,8 @@ def test_sharded_training_step(key):
     iterations on a toy fit."""
     import optax
 
-    from rtgs_tpu.config import TrainConfig
-    from rtgs_tpu.train.solver import activate, init_params, make_optimizer
+    from rtgs_jax.config import TrainConfig
+    from rtgs_jax.train.solver import activate, init_params, make_optimizer
 
     target_scene = random_scene(key, 32, extent=0.8)
     rays = _rays(64, jax.random.fold_in(key, 3))
@@ -97,7 +97,7 @@ def test_sharded_training_step(key):
     def step(params, opt_state):
         def loss_fn(p):
             g = activate(p, mask)
-            from rtgs_tpu.scene import pad_scene as _pad
+            from rtgs_jax.scene import pad_scene as _pad
 
             gs = jax.tree.map(lambda x: x, _pad(g, 4))
             rad, _ = render_sharded(gs, rays, 8, mesh)
@@ -118,11 +118,11 @@ def test_sharded_training_step(key):
 @pytest.mark.parametrize("n_rays,n_prims", [(8, 1), (4, 2), (2, 4)])
 def test_tiled_sharded_matches_single_device(key, n_rays, n_prims):
     """Production path: ring-over-prim-shards through the SAME keys
-    architecture as the single-chip flagship (VERDICT r4 weak #2) ==
-    single-device keys render, tightly; and the fused-payload path within
-    the documented summation-order tolerance."""
-    from rtgs_tpu.parallel.render import render_tiled_sharded
-    from rtgs_tpu.render.tiled import render_tiled_keys, render_tiled_pallas
+    architecture as the single-device path == single-device keys render,
+    tightly; and the all-candidates XLA twin within the documented
+    summation-order tolerance."""
+    from rtgs_jax.parallel.render import render_tiled_sharded
+    from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
     from tests.test_tiled import _orbit_cam
     from tests._utils import assert_images_close
 
@@ -137,19 +137,20 @@ def test_tiled_sharded_matches_single_device(key, n_rays, n_prims):
     img = render_tiled_sharded(gs, cam, mesh, depth=8, tile=(16, 16),
                                max_candidates=128, max_global=64)
     np.testing.assert_allclose(np.asarray(img), np.asarray(ref), atol=1e-5)
-    # Cross-family: the fused-payload kernel shades with MXU dots vs the
-    # keys path's elementwise chain — same selection, different summation
-    # order (exp-amplified) — standard image tolerance.
-    ref_fused = render_tiled_pallas(g, cam, depth=8, tile=(16, 16),
-                                    max_candidates=128, max_global=64)
-    assert_images_close(np.asarray(img), np.asarray(ref_fused))
+    # Cross-family: the XLA twin shades with dots vs the keys path's
+    # elementwise chain — same selection, different summation order
+    # (exp-amplified) — standard image tolerance.
+    ref_twin = render_tiled(g, cam, depth=8, tile=(16, 16),
+                            max_candidates=128, max_global=64)
+    assert_images_close(np.asarray(img), np.asarray(ref_twin))
 
 
 def test_tiled_sharded_gradients(key):
     """Scene gradients through the sharded production path == single-device
-    tiled-pallas gradients."""
-    from rtgs_tpu.parallel.render import render_tiled_sharded
-    from rtgs_tpu.render.tiled import render_tiled_pallas
+    keys-path gradients (selection through the Pallas kernel, interpret
+    mode)."""
+    from rtgs_jax.parallel.render import render_tiled_sharded
+    from rtgs_jax.render.tiled import render_tiled_keys
     from tests.test_tiled import _orbit_cam
 
     g = random_scene(key, 96, extent=1.0)
@@ -163,8 +164,9 @@ def test_tiled_sharded_gradients(key):
         return jnp.sum(img ** 2)
 
     def loss_ref(gg):
-        img = render_tiled_pallas(gg, cam, depth=8, tile=(16, 16),
-                                  max_candidates=128, max_global=64)
+        img = render_tiled_keys(gg, cam, depth=8, tile=(16, 16),
+                                max_candidates=128, max_global=64,
+                                keys_impl="interpret")
         return jnp.sum(img ** 2)
 
     grads_s = jax.grad(loss_sharded)(gs)
@@ -174,7 +176,7 @@ def test_tiled_sharded_gradients(key):
     # reorders the scatter-adds; the scales chain amplifies through the
     # covariance adjugate), so f32 reassociation noise of ~1e-3 relative is
     # expected — same normalized-quantile tolerance as the single-device
-    # cross-implementation test (test_pallas_scene_gradients).
+    # cross-implementation test (test_keys_gradients_match_tiled).
     for name in ["means", "quats", "scales", "colors", "opacities", "sh"]:
         a = np.asarray(getattr(grads_s, name))
         b = np.asarray(getattr(grads_r, name))
@@ -186,10 +188,9 @@ def test_tiled_sharded_gradients(key):
 
 @pytest.mark.slow
 def test_full_scale_dryrun_8dev():
-    """The round-3 driver dryrun workload (100k splats @ 256², depth 8,
-    full train step on an 8-device mesh) — kept at full scale in the slow
-    tier; the driver's default dryrun now runs the small-scale variant
-    (VERDICT r3 weak #1)."""
+    """The full-scale dryrun workload (100k splats @ 256², depth 8, full
+    train step on an 8-device mesh) — the slow tier; the default dryrun
+    runs the small-scale variant."""
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8, scale="full")

@@ -27,7 +27,7 @@ Deliberate deviations from the reference (documented, not silent):
     ``sample_buf / (num_samples + steps/depth)``, ``ray_tracer.py:68-77``):
     the reference casts DETERMINISTIC pixel-center rays, so every completed
     sample is the identical image and the converged average equals one
-    sample — these goldens ARE that converged image. The TPU renderer
+    sample — these goldens ARE that converged image. This renderer
     produces it in one pass; ``--sample`` is accepted for flag parity and
     the mid-sample partial averages (a GUI-progressiveness artifact) are
     intentionally not reproduced.
@@ -43,10 +43,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rtgs_tpu.camera import camera_from_fov
-from rtgs_tpu.render.oracle import render_oracle
-from rtgs_tpu.render.tiled import render_tiled, render_tiled_pallas
-from rtgs_tpu.scene import load_scene
+from rtgs_jax.camera import camera_from_fov
+from rtgs_jax.render.oracle import render_oracle
+from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
+from rtgs_jax.scene import load_scene
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
@@ -80,8 +80,11 @@ RENDERERS = {
     "oracle": lambda g, cam, d: render_oracle(g, cam, depth=d),
     "tiled": lambda g, cam, d: render_tiled(
         g, cam, depth=d, max_candidates=256, max_global=64),
-    "pallas": lambda g, cam, d: render_tiled_pallas(
-        g, cam, depth=d, max_candidates=256, max_global=64),
+    # The production keys path with its Pallas selection kernel (the
+    # Triton kernel, under the Pallas interpreter on CPU).
+    "pallas": lambda g, cam, d: render_tiled_keys(
+        g, cam, depth=d, max_candidates=256, max_global=64,
+        keys_impl="interpret"),
 }
 
 
