@@ -7,7 +7,7 @@ Phases (one process; every phase must pass or the script exits non-zero):
 
   (a) device check: JAX's default device must be a GPU; prints the card's
       name and power limit as ``nvidia-smi`` reports them.
-  (b) ``python -m rtgs_jax render`` (in-process ``main``) on a seeded
+  (b) ``python -m rtgs_tpu render`` (in-process ``main``) on a seeded
       1M-Gaussian scene written with ``save_scene``, at 1920x1088, depth 16,
       ``--renderer auto``: the image must be finite and the binning overflow
       counters 0.
@@ -16,8 +16,10 @@ Phases (one process; every phase must pass or the script exits non-zero):
   (d) parity on the card: at 100k splats, the production render against the
       brute-force oracle on a 256x192 view (mean |diff| <= 5e-3, p99 <=
       5e-2 — near-tie depth reorderings), and against the XLA form of the
-      selection; at 10k splats, keys-path gradients against ``render_tiled``'s
-      (normalized p99 <= 2e-2, max <= 2e-1; see GRAD_P99).
+      selection; at 10k splats, keys-path gradients against ``render_tiled``'s,
+      and at 4k splats the gradient of ``render(auto)`` (the oracle there)
+      against ``render_tiled``'s (normalized p99 <= 2e-2, max <= 2e-1; see
+      GRAD_P99).
   (e) ``fit`` for a few steps at 100k splats, 640x384, 4 views: the loss is
       finite and one checkpoint is written.
   (f) ``serve`` on a free port: three ``GET /frame`` with a ``POST /event``
@@ -38,7 +40,6 @@ import argparse
 import contextlib
 import io
 import json
-import os
 import pathlib
 import shutil
 import subprocess
@@ -49,7 +50,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from rtgs_jax.utils.platform import enable_compilation_cache  # noqa: E402
+from rtgs_tpu.utils.platform import enable_compilation_cache  # noqa: E402
 
 # Image gate (bench.py's): near-tie depth reorderings from last-bit t1
 # differences move a few pixels by up to one layer's contribution.
@@ -86,7 +87,7 @@ def card_line() -> str:
 
 
 def scene(n: int, seed: int):
-    from rtgs_jax.scene import random_scene
+    from rtgs_tpu.scene import random_scene
 
     return random_scene(__import__("jax").random.PRNGKey(seed), n,
                         extent=2.0, scale_range=(0.005, 0.03))
@@ -95,8 +96,8 @@ def scene(n: int, seed: int):
 def camera(res, theta=POSE["theta"], phi=POSE["phi"], r=POSE["radius"]):
     import numpy as np
 
-    from rtgs_jax.camera import camera_from_fov
-    from rtgs_jax.viewer.orbit import orbit_camera_pose
+    from rtgs_tpu.camera import camera_from_fov
+    from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
     pos, rot, _, _ = orbit_camera_pose(
         theta, phi, r, np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
@@ -105,7 +106,7 @@ def camera(res, theta=POSE["theta"], phi=POSE["phi"], r=POSE["radius"]):
 
 def cli(argv) -> str:
     """Run the CLI's ``main`` in this process; return what it printed."""
-    from rtgs_jax.__main__ import main
+    from rtgs_tpu.__main__ import main
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -145,8 +146,8 @@ def phase_render(work):
     """(b) CLI render of the 1M scene at 1080p."""
     import numpy as np
 
-    from rtgs_jax.scene import save_scene
-    from rtgs_jax.utils.image import decode_png
+    from rtgs_tpu.scene import save_scene
+    from rtgs_tpu.utils.image import decode_png
 
     path = work / "scene_1m.ply"
     t0 = time.perf_counter()
@@ -175,8 +176,8 @@ def phase_grad(scene_path):
     import jax
     import jax.numpy as jnp
 
-    from rtgs_jax.render.api import render
-    from rtgs_jax.scene import load_scene
+    from rtgs_tpu.render.api import render
+    from rtgs_tpu.scene import load_scene
 
     g = load_scene(scene_path)
     cam = camera(BIG["res"])
@@ -211,9 +212,9 @@ def phase_parity():
     import jax.numpy as jnp
     import numpy as np
 
-    from rtgs_jax.render.api import render
-    from rtgs_jax.render.oracle import render_oracle
-    from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
+    from rtgs_tpu.render.api import render
+    from rtgs_tpu.render.oracle import render_oracle
+    from rtgs_tpu.render.tiled import render_tiled, render_tiled_keys
 
     g = scene(MID["n"], seed=1)
     cam = camera((256, 192))
@@ -228,7 +229,7 @@ def phase_parity():
                render_tiled_keys(g, cam, depth=16, keys_impl="xla",
                                  **PARITY_TILING))
 
-    from rtgs_jax.scene import random_scene
+    from rtgs_tpu.scene import random_scene
 
     g = random_scene(jax.random.PRNGKey(2), 10_000, extent=1.0,
                      scale_range=(0.01, 0.05))
@@ -237,26 +238,38 @@ def phase_parity():
     _, stats = render_tiled_keys(g, cam, with_stats=True, **kw)
     assert int(stats["local_overflow"]) == 0, stats
 
-    def grads(fn):
+    def grads(fn, g):
         return jax.jit(jax.grad(
             lambda x: jnp.sum(fn(x, cam, **kw) ** 2)))(g)
 
-    gk, gt = grads(render_tiled_keys), grads(render_tiled)
-    for name in ("means", "quats", "scales", "colors", "opacities", "sh"):
-        a = np.asarray(getattr(gk, name))
-        b = np.asarray(getattr(gt, name))
-        assert np.isfinite(a).all(), name
-        rel = np.abs(a - b) / (np.abs(b).max() + 1e-8)
-        p99, mx = float(np.quantile(rel, 0.99)), float(rel.max())
-        log(f"(d) 10k grad {name}: normalized p99={p99:.3g} max={mx:.3g}")
-        assert p99 < GRAD_P99 and mx < GRAD_MAX, (name, p99, mx)
+    def grad_gate(tag, got, ref):
+        for name in ("means", "quats", "scales", "colors", "opacities",
+                     "sh"):
+            a = np.asarray(getattr(got, name))
+            b = np.asarray(getattr(ref, name))
+            assert np.isfinite(a).all(), (tag, name)
+            rel = np.abs(a - b) / (np.abs(b).max() + 1e-8)
+            p99, mx = float(np.quantile(rel, 0.99)), float(rel.max())
+            log(f"(d) {tag} grad {name}: normalized p99={p99:.3g} "
+                f"max={mx:.3g}")
+            assert p99 < GRAD_P99 and mx < GRAD_MAX, (tag, name, p99, mx)
+
+    grad_gate("10k keys vs tiled", grads(render_tiled_keys, g),
+              grads(render_tiled, g))
+    # render(auto) sends scenes of at most 4096 splats to the oracle, so
+    # fitting a small scene trains on the oracle's gradient.
+    g = random_scene(jax.random.PRNGKey(3), 4000, extent=1.0,
+                     scale_range=(0.01, 0.05))
+    grad_gate("4k auto (oracle) vs tiled",
+              grads(lambda x, c, **k: render(x, c, renderer="auto", **k), g),
+              grads(render_tiled, g))
 
 
 def phase_fit(work):
     """(e) CLI fit at 100k@640x384, 4 views, a checkpoint."""
     import math
 
-    from rtgs_jax.scene import save_scene
+    from rtgs_tpu.scene import save_scene
 
     path = work / "scene_100k.ply"
     save_scene(path, scene(MID["n"], seed=1))
@@ -279,7 +292,7 @@ def phase_serve(scene_path):
     import socket
     import urllib.request
 
-    from rtgs_jax.utils.image import decode_png
+    from rtgs_tpu.utils.image import decode_png
 
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -287,7 +300,7 @@ def phase_serve(scene_path):
     s.close()
     argv = ["serve", "-o", scene_path, *pose_flags((640, 384)), "-d", 16,
             *tiling_flags(MID["tiling"]), "--port", port]
-    from rtgs_jax.__main__ import main
+    from rtgs_tpu.__main__ import main
 
     threading.Thread(target=main, args=([str(a) for a in argv],),
                      daemon=True).start()
@@ -328,9 +341,9 @@ def phase_four():
     import jax
 
     import __graft_entry__ as ge
-    from rtgs_jax.parallel.mesh import make_mesh
-    from rtgs_jax.parallel.render import render_tiled_sharded, shard_scene
-    from rtgs_jax.render.tiled import render_tiled_keys
+    from rtgs_tpu.parallel.mesh import make_mesh
+    from rtgs_tpu.parallel.render import render_tiled_sharded, shard_scene
+    from rtgs_tpu.render.tiled import render_tiled_keys
 
     assert len(jax.devices()) == 4, jax.devices()
     g = scene(BIG["n"], seed=0)

@@ -1,4 +1,4 @@
-"""Sphinx configuration for the rtgs_jax docs site.
+"""Sphinx configuration for the rtgs_tpu docs site.
 
 Same stack as the reference docs (Sphinx + MyST markdown + furo theme,
 reference ``docs/source/conf.py:18-50``); built and deployed to GitHub Pages
@@ -10,9 +10,9 @@ import sys
 
 sys.path.insert(0, os.path.abspath("../.."))
 
-project = "rtgs_jax"
-author = "rtgs_jax developers"
-copyright = "2026, rtgs_jax developers"
+project = "rtgs_tpu"
+author = "rtgs_tpu developers"
+copyright = "2026, rtgs_tpu developers"
 
 extensions = [
     "myst_parser",
@@ -28,7 +28,7 @@ master_doc = "index"
 exclude_patterns = []
 
 html_theme = "furo"
-html_title = "rtgs_jax — differentiable ray-traced Gaussian splatting"
+html_title = "rtgs_tpu — differentiable ray-traced Gaussian splatting"
 
 # Heavy accelerator deps may be absent on the docs builder.
 autodoc_mock_imports = ["jax", "jaxlib", "optax", "chex"]

@@ -1,9 +1,10 @@
-"""rtgs_tpu — TPU-native differentiable ray-traced Gaussian splat renderer.
+"""rtgs_tpu — differentiable ray-traced Gaussian splat renderer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference ``fangjunzhou/rt-gaussian-splat-renderer`` (see SURVEY.md), designed
-TPU-first: structure-of-arrays scenes, fused intersect/sort/composite kernels,
-mesh sharding over rays and primitives, and a differentiable training loop.
+reference ``fangjunzhou/rt-gaussian-splat-renderer`` (see SURVEY.md):
+structure-of-arrays scenes, tile-binned per-pixel top-K selection (a
+Pallas-Triton kernel on the GPU), mesh sharding over rays and primitives,
+and a differentiable training loop.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,7 @@ The reference builds a SAH BVH with a host-driven per-node loop (~3 minutes
 for 32k nodes, ``/root/reference/src/rtgs/scene.py:162-404``, timings in its
 ``fast-gpu-parallel-bvh`` blog) and traverses it with a per-thread stack
 (``scene.py:406-450``). Host round-trips per node and data-dependent stacks
-are both TPU anti-patterns, so this module replaces the *mechanism* while
+are both anti-patterns for XLA, so this module replaces the *mechanism* while
 keeping the *capability*:
 
   * **Build**: Morton-code LBVH (Karras 2012) — quantize centroids to a

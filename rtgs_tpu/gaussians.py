@@ -1,6 +1,6 @@
 """Gaussian primitive math: covariance, SH color, ray–ellipsoid intersection.
 
-TPU-native structure-of-arrays design: a scene is a :class:`Gaussians` pytree
+Structure-of-arrays design: a scene is a :class:`Gaussians` pytree
 of flat ``jnp`` arrays (no per-primitive structs), so every op below is
 batched, differentiable, and shardable with ``NamedSharding``.
 
@@ -48,7 +48,7 @@ class Gaussians(NamedTuple):
     """Structure-of-arrays Gaussian scene (a pytree of flat arrays).
 
     The reference stores an AoS Taichi struct field (``gaussian.py:26-55``);
-    on TPU we keep SoA arrays so XLA can tile them and ``NamedSharding`` can
+    here we keep SoA arrays so XLA can tile them and ``NamedSharding`` can
     shard the leading (primitive) axis.
 
     Attributes:
@@ -111,7 +111,8 @@ def covariance(quats: jnp.ndarray, scales: jnp.ndarray) -> jnp.ndarray:
     """``Σ = R S Sᵀ Rᵀ`` (reference ``gaussian.py:86-102``). → (..., 3, 3)."""
     r = quat.as_rotation_mat3(quats)
     rs = r * scales[..., None, :]  # R @ diag(s)
-    return rs @ jnp.swapaxes(rs, -1, -2)
+    return jnp.matmul(rs, jnp.swapaxes(rs, -1, -2),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _adjugate_inverse_3x3(m: jnp.ndarray) -> jnp.ndarray:
@@ -153,15 +154,15 @@ def inv_covariance_direct(quats: jnp.ndarray, scales: jnp.ndarray) -> jnp.ndarra
     conditioned; used by the production kernels."""
     r = quat.as_rotation_mat3(quats)
     rs = r / scales[..., None, :]
-    return rs @ jnp.swapaxes(rs, -1, -2)
+    return jnp.matmul(rs, jnp.swapaxes(rs, -1, -2),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _rotation_columns(quats: jnp.ndarray):
     """The three rotated basis vectors (columns of R), each (..., 3) —
-    the flat-component building block: on TPU any (..., 3, 3) rotation
-    array pads each matrix onto the (8, 128) vector tile (a measured
-    ~30 ms of pure padding traffic in the 100k feature pack), so the hot
-    paths assemble what they need from these columns instead."""
+    the flat-component building block: the hot paths assemble what they
+    need from these (N,)-shaped columns instead of materializing
+    (..., 3, 3) arrays with tiny, padding-prone minor dims."""
     shape = quats.shape[:-1]
     ex = jnp.broadcast_to(jnp.array([1.0, 0.0, 0.0]), shape + (3,))
     ey = jnp.broadcast_to(jnp.array([0.0, 1.0, 0.0]), shape + (3,))
@@ -273,12 +274,9 @@ def hit(
     ``Δ == 0 → (−B/2A, inf)``.
     """
     e = origins - means  # (..., 3)
-    # HIGHEST: on the TPU MXU the default bf16 input precision feeds the
+    # HIGHEST: a reduced-precision matmul (bf16 or TF32 inputs) feeds the
     # cancellation-sensitive quadratic (c = eᵀΣ⁻¹e − 3 subtracts ~equal
-    # magnitudes); at bench density the ORACLE rendered at 11.6 dB PSNR
-    # vs its own CPU output until these were pinned (round 5) — the same
-    # hardware bug class as the round-3 production-kernel NaN
-    # (BASELINE.md "hardware-correctness").
+    # magnitudes) and wrecks the rendered image.
     hp = jax.lax.Precision.HIGHEST
     me = jnp.einsum("...ij,...j->...i", cov_inv, e, precision=hp)
     md = jnp.einsum("...ij,...j->...i", cov_inv, directions, precision=hp)
@@ -313,7 +311,8 @@ def eval_gaussian(
     Returns ``(rgb, alpha)``.
     """
     d = pos - means
-    md = jnp.einsum("...ij,...j->...i", cov_inv, d)
+    md = jnp.einsum("...ij,...j->...i", cov_inv, d,
+                    precision=jax.lax.Precision.HIGHEST)
     rho = jnp.exp(-jnp.sum(d * md, axis=-1))
     alpha = opacities * rho
     dirs_n = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)

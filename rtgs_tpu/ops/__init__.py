@@ -1,3 +1,3 @@
-from rtgs_tpu.ops.peel import peel_pallas
+from rtgs_tpu.ops.peel import peel_keys
 
-__all__ = ["peel_pallas"]
+__all__ = ["peel_keys"]

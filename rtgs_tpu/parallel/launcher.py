@@ -6,9 +6,14 @@ this module supplies, is (a) a launcher that starts one worker process
 per host-rank, (b) HEARTBEAT files each worker touches periodically, and
 (c) FAIL-FAST teardown: if any worker dies or stops heartbeating, every
 other worker is killed immediately — a wedged collective otherwise hangs
-the remaining ranks until the DCN timeout (minutes) with the pod slice
-billed throughout. Restartability comes from Orbax checkpoints
-(train/solver.py): the relaunched job resumes from the latest step.
+the remaining ranks until the collective timeout (minutes) with every card
+held throughout. Restartability comes from checkpoints (train/solver.py):
+the relaunched job resumes from the latest step.
+
+All ranks run on this host, so each gets ONE card: rank r sees only card r
+through ``CUDA_VISIBLE_DEVICES`` (the r-th entry of the caller's own list,
+if it set one). A JAX process reserves most of every card it can see when
+it starts, so ranks that shared all cards would fail for want of memory.
 
 This is deliberately dependency-free (stdlib only) and transport-agnostic:
 workers are plain commands; rank/coordination env vars
@@ -50,6 +55,18 @@ def touch_heartbeat() -> None:
             pass
 
 
+def rank_devices(env, rank: int) -> str:
+    """``CUDA_VISIBLE_DEVICES`` for ``rank``: its own card only."""
+    visible = env.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        cards = [c for c in visible.split(",") if c.strip()]
+        if rank >= len(cards):
+            raise ValueError(
+                f"rank {rank} has no card: CUDA_VISIBLE_DEVICES={visible!r}")
+        return cards[rank].strip()
+    return str(rank)
+
+
 def launch(cmd, num_processes: int, coordinator: str,
            heartbeat_timeout: float = 300.0, poll_s: float = 1.0,
            env=None) -> int:
@@ -72,6 +89,7 @@ def launch(cmd, num_processes: int, coordinator: str,
             JAX_COORDINATOR_ADDRESS=coordinator,
             JAX_NUM_PROCESSES=str(num_processes),
             JAX_PROCESS_ID=str(rank),
+            CUDA_VISIBLE_DEVICES=rank_devices(base_env, rank),
             **{HEARTBEAT_ENV: hb},
         )
         procs.append(subprocess.Popen(cmd, env=worker_env))

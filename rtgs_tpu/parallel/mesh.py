@@ -1,19 +1,21 @@
 """Device mesh construction for the renderer's two parallel axes.
 
-The reference is strictly single-process, single-GPU (SURVEY.md §2.3); the
-TPU framework's first-class parallelism is:
+The reference is strictly single-process, single-GPU (SURVEY.md §2.3); this
+framework's first-class parallelism is:
 
   * ``rays``  — pixel/ray data parallelism: the pixel grid is sharded across
     chips; embarrassingly parallel, no communication in the forward pass,
     gradient ``psum`` in training.
-  * ``prims`` — primitive parallelism for scenes too large for one chip's
-    HBM: the Gaussian SoA is sharded, and rendering runs a ring pass over
+  * ``prims`` — primitive parallelism for scenes too large for one card's
+    memory: the Gaussian SoA is sharded, and rendering runs a ring pass over
     shards (ring-attention structure: stationary queries = rays, rotating
     keys = Gaussians, online merge = depth-sorted top-K; SURVEY.md §5).
 
-Collectives are XLA-compiled (``ppermute`` ring over ICI, ``psum`` for
-grads); multi-host bring-up is ``jax.distributed.initialize`` + the same
-mesh spanning all hosts' devices.
+Collectives are XLA-compiled and handed to NCCL (``ppermute`` ring,
+``psum`` for grads). The cards of one host are joined all to all by
+NVLink, so the mesh takes devices in ``jax.devices()`` order with no
+topology shaping. Multi-process bring-up is ``jax.distributed.initialize``
++ the same mesh spanning every process's devices.
 """
 
 from __future__ import annotations
@@ -49,15 +51,16 @@ def make_mesh(n_rays: int = 0, n_prims: int = 1, devices=None) -> Mesh:
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Multi-host bring-up (SURVEY.md §2.3d): ``jax.distributed.initialize``
-    over DCN, after which ``jax.devices()`` spans every host's chips and
-    :func:`make_mesh` builds one global mesh.
+    """Multi-process bring-up (SURVEY.md §2.3d):
+    ``jax.distributed.initialize``, after which ``jax.devices()`` spans
+    every process's cards and :func:`make_mesh` builds one global mesh.
 
     Arguments fall back to the standard env vars
     (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``), and on managed TPU pods (GCE metadata present) all
-    three may be ``None`` — JAX autodetects. Safe to call once per process,
-    before any other JAX API.
+    ``JAX_PROCESS_ID``). Nothing detects a cluster on its own: the
+    coordinator address (``host:port``), the process count and this
+    process's id must all be given. Call once per process, before any
+    other JAX API.
     """
     import os
 

@@ -2,8 +2,8 @@
 
 Structure (SURVEY.md §5 "long-context equivalent"): rays are stationary
 queries sharded over the ``rays`` mesh axis; the Gaussian SoA is sharded over
-``prims`` and rotated around the ring with ``ppermute`` (XLA lowers this onto
-ICI). Each ring step computes the local shard's top-K nearest hits per ray
+``prims`` and rotated around the ring with ``ppermute`` (XLA hands this to
+NCCL over NVLink). Each ring step computes the local shard's top-K nearest hits per ray
 and merges them into the running K-list by entry depth — an online,
 depth-sorted merge that is exactly equivalent to a global top-K, so the
 sharded render is bit-comparable to the single-device oracle (up to f32 and
@@ -70,12 +70,11 @@ def _ring_body(rays: Rays, depth: int, n_prims: int):
 def render_sharded(g: G.Gaussians, rays: Rays, depth: int, mesh: Mesh):
     """Render a flat ray bundle on a ``(rays, prims)`` mesh.
 
-    .. deprecated:: round 3
-        Test/oracle use only — this fans the O(N·P) brute-force oracle
-        around the ring and cannot scale. Production rendering goes through
-        :func:`render_tiled_sharded` (per-shard binning + fused Pallas
-        top-K + ring merge); this entry point stays as the cross-device
-        parity oracle for it.
+    Test/oracle use only — this fans the O(N·P) brute-force oracle around
+    the ring and cannot scale. Production rendering goes through
+    :func:`render_tiled_sharded` (per-shard binning + keys top-K + ring
+    merge); this entry point stays as the cross-device parity oracle for
+    it.
 
     Args:
       g: scene sharded over ``prims`` (see :func:`shard_scene`); N must be a
@@ -143,15 +142,14 @@ def render_tiled_sharded(
 ):
     """Production multi-device render: screen tiles data-parallel over the
     ``rays`` axis × a ``ppermute`` ring over primitive shards, running the
-    **same keys architecture as the single-chip flagship** per shard
-    (VERDICT r4 weak #2 — the program family being benchmarked IS the one
-    being sharded).
+    **same keys architecture as the single-device path** per shard (the
+    program family being benchmarked IS the one being sharded).
 
     Per ring step each rays-rank: bins the current prim shard into its
-    local tiles' candidate lists (with the round-5 early-termination chunk
+    local tiles' candidate lists (with the early-termination chunk
     bounds), selects per-pixel K nearest (t1, local splat id) keys with
-    :func:`rtgs_tpu.ops.peel.peel_keys` (the keys-only Pallas kernel on
-    TPU, the lex-sort XLA twin elsewhere), shades ONLY those winners with
+    :func:`rtgs_tpu.ops.peel.peel_keys` (the Triton keys kernel on the
+    GPU, the lex-sort XLA form elsewhere), shades ONLY those winners with
     :func:`rtgs_tpu.render.tiled.shade_winners` (differentiable; the ring
     therefore carries 5 (T, P, K) layer arrays — t1/α/r/g/b — not the
     payload of every candidate), and merges them by entry depth into the
@@ -215,9 +213,7 @@ def render_tiled_sharded(
             packed = pack_features(precompute_features(g_shard, camera))
             t1_k, sid_k = peel_keys(packed, cand_local, pix_local, depth,
                                     chunk_lb=lb_local)
-            a_k, r_k, g_k, b_k = shade_winners(
-                packed, sid_k, pix_local,
-                jax.lax.stop_gradient(cand_local))
+            a_k, r_k, g_k, b_k = shade_winners(packed, sid_k, pix_local)
             best = _merge_layers(best, (t1_k, a_k, r_k, g_k, b_k), depth)
             if n_prims > 1:
                 perm = [(j, (j + 1) % n_prims) for j in range(n_prims)]

@@ -2,10 +2,14 @@
 
   * ``oracle`` — brute force O(N·P), exact reference semantics
     (:mod:`rtgs_tpu.render.oracle`). Differentiable.
-  * ``tiled``  — tile-binned candidate lists + fused Pallas peel kernel
-    (:mod:`rtgs_tpu.render.tiled`). The production path. Differentiable with
-    a hand-written backward.
-  * ``auto``   — tiled for large scenes, oracle for small ones.
+  * ``keys``   — tile-binned candidate lists, per-pixel top-K selection
+    (the Triton kernel on the GPU) and XLA winner shading
+    (:func:`rtgs_tpu.render.tiled.render_tiled_keys`). The production
+    path. Differentiable.
+  * ``tiled``  — the same binning with every candidate intersected and
+    peeled in plain XLA (:func:`rtgs_tpu.render.tiled.render_tiled`).
+  * ``auto``   — keys for large scenes, oracle for small ones, on every
+    backend.
 """
 
 from __future__ import annotations
@@ -24,18 +28,13 @@ def render(g: G.Gaussians, camera: Camera, depth: int = 16,
            renderer: str = "auto", **kwargs) -> jnp.ndarray:
     """Render a full frame. Returns (W, H, 3) radiance."""
     if renderer == "auto":
-        if g.num <= _ORACLE_MAX_N:
-            renderer = "oracle"
-        else:
-            import jax
-
-            renderer = "pallas" if jax.default_backend() == "tpu" else "tiled"
+        renderer = "oracle" if g.num <= _ORACLE_MAX_N else "keys"
     if renderer == "oracle":
         from rtgs_tpu.render.oracle import render_oracle
 
         # Tiled-only tuning knobs (candidate budgets, banding) have no
         # meaning for brute force — drop them instead of raising so one CLI
-        # flag set drives every path (ADVICE r3).
+        # flag set drives every path.
         kwargs = {k: v for k, v in kwargs.items()
                   if k not in ("max_candidates", "max_global",
                                "tile_bands", "max_tiles_local", "tile",
@@ -45,13 +44,9 @@ def render(g: G.Gaussians, camera: Camera, depth: int = 16,
         from rtgs_tpu.render.tiled import render_tiled
 
         # render_tiled has no banding knob (its per-chunk lax.map already
-        # bounds memory) — accept and drop it (ADVICE r3).
+        # bounds memory) — accept and drop it.
         kwargs.pop("tile_bands", None)
         return render_tiled(g, camera, depth=depth, **kwargs)
-    if renderer == "pallas":
-        from rtgs_tpu.render.tiled import render_tiled_pallas
-
-        return render_tiled_pallas(g, camera, depth=depth, **kwargs)
     if renderer == "keys":
         from rtgs_tpu.render.tiled import render_tiled_keys
 
@@ -105,7 +100,7 @@ class ProgressiveSampler:
     (partial-pass display, ``ray_tracer.py:75-77``) collapses to the whole
     sample count: there are no partial passes to display. This is the one
     deliberate deviation from the progressive contract (documented +
-    tested; VERDICT r3 missing #1)."""
+    tested)."""
 
     def __init__(self, g, camera, depth: int = 16, renderer: str = "auto",
                  jitter: bool = False, key=None, **kwargs):

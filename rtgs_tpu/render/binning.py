@@ -1,9 +1,9 @@
-"""Screen-tile candidate binning — the TPU-native acceleration structure.
+"""Screen-tile candidate binning — the renderer's acceleration structure.
 
 The reference accelerates ray casts with a pointer-based SAH BVH traversed by
 a per-thread stack (``/root/reference/src/rtgs/scene.py:162-450``) — a
 GPU/Taichi idiom that is hostile to XLA (data-dependent pointer chasing,
-dynamic trip counts). The TPU replacement: **conservative screen-tile
+dynamic trip counts). The replacement here: **conservative screen-tile
 candidate lists**, built fully on-device with static shapes:
 
   1. project every Gaussian's 3σ AABB (the reference's own bound semantics,
@@ -43,13 +43,10 @@ _INT32_MAX = jnp.iinfo(jnp.int32).max
 def _tree_cumsum(x, block: int = 1024):
     """Inclusive cumsum of a flat int array with COMPILE-CHEAP structure.
 
-    XLA:TPU compile time for long-axis scans explodes with the scanned
-    length (round-4 chipless bisect: a 1M monolithic ``jnp.cumsum``
-    compiles in 30 s; the round-3 two-level ``associative_scan`` form is
-    far worse — >13 min at 8M). Short-axis cumsums are cheap regardless
-    of batch, so recurse: reshape to (m, block), cumsum each block along
-    the short axis, and recur on the m block totals. Compiles in ~1 s at
-    13M elements."""
+    XLA's compile time for a scan along one very long axis grows with its
+    length, while short-axis cumsums are cheap regardless of batch, so
+    recurse: reshape to (m, block), cumsum each block along the short
+    axis, and recur on the m block totals."""
     n = x.shape[0]
     if n <= block:
         return jnp.cumsum(x)
@@ -61,33 +58,6 @@ def _tree_cumsum(x, block: int = 1024):
     return (inner + carry[:, None]).reshape(-1)[:n]
 
 
-class GradPlan(NamedTuple):
-    """Gather-based per-splat gradient accumulation plan (round 5).
-
-    The shade backward pre-reduces winner cotangents to per-tile
-    candidate rows ``d_cand`` (T, C, F) with a mask-matmul; this plan
-    turns the final per-splat accumulation into a GATHER + sum instead of
-    a scatter/segment_sum (measured 35 ms for the T·C-row segment_sum at
-    100k@384p vs ~5 ms for the gather form): every splat knows the ≤
-    ``narrow² + 1`` flat positions its candidate copies landed at in the
-    ``[d_cand | d_glob | 0]`` value space, because the binning's sort is
-    invertible (the pair stream carries its pre-sort position).
-
-    Attributes:
-      gather_idx: (narrow² + 1, N) int32 — for each splat, its narrow
-        fan-out slots + its global slot, as indices into the flat value
-        space ``[T·C rows | C tile-summed global rows | one zero row]``;
-        dead/overflowed slots point at the zero row.
-      wide_idx: (mtx·mty, wlimit) int32 or None — same, for the
-        compacted wide-class splats.
-      wide_ids: (wlimit,) int32 or None — the wide splat ids (N = dead).
-    """
-
-    gather_idx: jnp.ndarray
-    wide_idx: jnp.ndarray | None
-    wide_ids: jnp.ndarray | None
-
-
 class TileBinning(NamedTuple):
     """Result of :func:`tile_candidates`.
 
@@ -96,7 +66,7 @@ class TileBinning(NamedTuple):
       n_tiles_x / n_tiles_y: tile grid dims (tile index = tx * nty + ty).
       local_overflow: scalar — candidate slots dropped because a tile
         exceeded C (the farthest Gaussians are dropped first).
-      global_overflow: scalar —Aussians needing the global list beyond Cg.
+      global_overflow: scalar — Gaussians needing the global list beyond Cg.
       counts: (T,) int32 valid-prefix length per tile.
       chunk_lb: (T, W/chunk + 1) f32 — per candidate-chunk, a conservative
         lower bound on the entry depth t1 of EVERY candidate in this chunk
@@ -114,13 +84,16 @@ class TileBinning(NamedTuple):
     global_overflow: jnp.ndarray
     counts: jnp.ndarray
     chunk_lb: jnp.ndarray | None = None
-    grad_plan: GradPlan | None = None
 
 
 def _camera_space(points: jnp.ndarray, camera: Camera) -> jnp.ndarray:
     """World → camera coordinates: ``Rᵀ (p − pos)`` (camera looks −z)."""
     r = quat.as_rotation_mat3(camera.rotation)
-    return (points - camera.position) @ r
+    # HIGHEST: these coordinates decide which tiles a splat lands in. A
+    # TF32 or bf16 matmul (~1e-3 relative) can shift a projected bound by
+    # a fraction of a pixel, and the AABB bound has no margin to absorb it.
+    return jnp.matmul(points - camera.position, r,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def tile_candidates(
@@ -133,7 +106,6 @@ def tile_candidates(
     pad_px: float = 0.0,
     narrow: int | None = None,
     chunk: int | None = None,
-    grad_map: bool = False,
 ) -> TileBinning:
     """Build fixed-width per-tile candidate lists (all on-device, jittable).
 
@@ -153,17 +125,16 @@ def tile_candidates(
 
     ``narrow``: narrow-class fan-out width in tiles (default: env
     ``RTGS_BIN_NARROW`` or 4) — a STATIC argument so the jit cache keys on
-    it (ADVICE r4: the env read alone silently ignored per-call changes).
+    it (an env read alone would silently ignore per-call changes).
     ``chunk``: when given, the candidate width is padded to a multiple of
     it and ``chunk_lb`` (see :class:`TileBinning`) is returned.
 
-    Compile-bomb discipline (round 4, chipless per-primitive bisect at 1M
-    splats): everything downstream of the fan-out is ONE ``lax.sort`` of
-    the (tile, depth)-keyed pair stream — global-list pairs ride the same
-    sort under a sentinel tile id — followed by scatter-add/gather
-    placement. No O(pairs) scans (each compiled for 30 s-13 min at these
-    sizes), no top_k over N (42 s), no 2-D scatter (22 s); the candidate
-    matrix is a *gather* from the sorted stream (0.3 s).
+    Compile-time discipline at 1M splats: everything downstream of the
+    fan-out is ONE ``lax.sort`` of the (tile, depth)-keyed pair stream —
+    global-list pairs ride the same sort under a sentinel tile id —
+    followed by scatter-add/gather placement. No O(pairs) scans, no top_k
+    over N, no 2-D scatter (each compiles slowly at these sizes); the
+    candidate matrix is a *gather* from the sorted stream.
     """
     w, h = camera.buf_size
     tw, th = tile
@@ -224,25 +195,22 @@ def tile_candidates(
     # num_tiles == 32767 the packed key num_tiles·65536 + 65535 equals
     # INT32_MAX — the dead-slot sentinel — and the farthest live splat
     # always quantizes to the top bucket, so its global-list pair would
-    # silently vanish (ADVICE r4).
+    # silently vanish.
     dq = jnp.clip(lb / dmax * 65535.0, 0, 65534).astype(jnp.int32)
 
-    # --- Local fan-out, two classes (measured round 4): ≥99.3% of splats
-    # at bench densities cover ≤ narrow×narrow tiles, so fanning every
-    # splat out to the full (mtx, mty) rectangle wastes ~7x the pair
-    # slots — and the flat O(N·mtx·mty) arrays were the 1M-scale compile
-    # bomb (64M-element cumsums). Narrow splats fan out to narrow² slots;
-    # the rare wide ones are compacted to a fixed budget first and fan
-    # out to (mtx, mty); wide splats beyond the budget spill to the
-    # GLOBAL list (conservative — appended to every tile), never dropped.
-    # Narrow-class width (env RTGS_BIN_NARROW, default 4): at the
-    # 1M@1080p bench pose 98.9% of splats fit 4×4 tiles but only 90.3%
-    # fit 3×3 — with narrow = 3 the wide class (96.8k splats) overflowed
-    # its n/16 budget and spilled 34k splats to the global list (0.55%
-    # of candidates dropped in BENCH r4's first 1M run). At 4×4 the wide
-    # class is 11k splats (5.7× headroom) at the cost of 16 instead of 9
-    # fan-out slots per splat (~8% of frame time at 100k@384p — configs
-    # whose overflow counters read zero at narrow = 3 can set the env).
+    # --- Local fan-out, two classes: almost every splat at typical
+    # densities covers ≤ narrow×narrow tiles, so fanning every splat out
+    # to the full (mtx, mty) rectangle would waste most of the pair slots
+    # (and flat O(N·mtx·mty) arrays compile slowly at 1M splats). Narrow
+    # splats fan out to narrow² slots; the rare wide ones are compacted to
+    # a fixed budget (n/16) first and fan out to (mtx, mty); wide splats
+    # beyond the budget spill to the GLOBAL list (conservative — appended
+    # to every tile), never dropped. Narrow-class width (env
+    # RTGS_BIN_NARROW, default 4): a narrower class fans out to fewer
+    # slots per splat but sends more splats to the wide class, which at
+    # 1M splats @ 1080p overflows its budget at narrow = 3 and spills to
+    # the global list (dropping candidates); the overflow counters say
+    # whether a configuration can use 3.
     import os as _os
 
     if narrow is None:
@@ -252,9 +220,8 @@ def tile_candidates(
     is_narrow = is_local & ~is_wide
 
     def fan_out(sel, tx0s, ty0s, wxs, wys, dqs, span_x, span_y):
-        # Layout: (span, span, N) with the LONG axis minor — the (N, 3, 3)
-        # form pads its minor dims onto the (8, 128) TPU tile, measured
-        # 130x slower to build (scripts/binprobe2.py, round 5).
+        # Layout: (span, span, N) with the LONG axis minor, not (N, 3, 3)
+        # with tiny minor dims.
         dx = jnp.arange(span_x, dtype=jnp.int32)
         dy = jnp.arange(span_y, dtype=jnp.int32)
         txs = tx0s[None, :] + dx[:, None]              # (sx, L)
@@ -313,21 +280,13 @@ def tile_candidates(
     # splat, so sorting it directly beats compacting first — the
     # compaction's own scans/scatters cost more compile time than the
     # slightly larger sort).
-    if grad_map:
-        # Carry each pair's PRE-SORT flat position through the sort so the
-        # placement is invertible (the basis of the gather-form gradient
-        # accumulation, :class:`GradPlan`).
-        pos_f = jnp.arange(key_f.shape[0], dtype=jnp.int32)
-        key_s, val_s, pos_s = jax.lax.sort((key_f, val_f, pos_f),
-                                           num_keys=1)
-    else:
-        key_s, val_s = jax.lax.sort((key_f, val_f), num_keys=1)
+    key_s, val_s = jax.lax.sort((key_f, val_f), num_keys=1)
 
     # Tile offsets by BINARY SEARCH on the sorted keys (tile t's pairs
     # span [offs[t], offs[t+1]) because the tile id rides the key's high
     # bits; dead pairs carry INT32_MAX and sink past the last boundary).
-    # The scatter-add formulation this replaces measured 8.0 ms at 900k
-    # pairs (scripts/binprobe2.py) — the search is ~20 gathers of T+2.
+    # The search is ~20 gathers of T+2 instead of a scatter-add over all
+    # pairs.
     # No overflow: num_tiles·shift ≤ (2¹⁵−1)·2¹⁶ < 2³¹ − 2¹⁶.
     bounds = jnp.concatenate([
         jnp.arange(num_tiles + 1, dtype=jnp.int32) * shift,
@@ -337,8 +296,8 @@ def tile_candidates(
 
     # Candidate matrix as PER-TILE ROW SLICES of the sorted stream (each
     # tile's pairs are CONTIGUOUS there, so a vmapped dynamic_slice — an
-    # XLA gather of whole rows — replaces the 1.6M-element scalar gather
-    # that measured 11.5 ms, scripts/binprobe2.py). The global row's
+    # XLA gather of whole rows — replaces a per-element scalar gather of
+    # the whole candidate matrix). The global row's
     # pairs come FIRST in every tile's row (they carry no useful depth
     # ordering relative to the locals, and leading placement keeps the
     # local tail's suffix depth bounds tight for early termination), then
@@ -407,49 +366,5 @@ def tile_candidates(
             chunk_lb = jnp.zeros((num_tiles, nchunk), jnp.float32)
         chunk_lb = jnp.concatenate(
             [chunk_lb, jnp.zeros((num_tiles, 1), jnp.float32)], axis=1)
-    grad_plan = None
-    if grad_map:
-        # Map any pre-sort flat pair slot to its row in the backward's
-        # flat value space [d_cand (T·C) | d_glob (C) | zero]: stream
-        # position s = inv_s[slot]; tile segment by binary search on the
-        # offsets; dead / overflow-dropped pairs → the zero row (their
-        # candidates never entered the forward either). The global block
-        # is a full-C tile-sum of d_cand (global candidates occupy the
-        # same column j < n_glob in EVERY tile's row), so the backward
-        # needs no static max_global.
-        zero_row = (num_tiles + 1) * total_c
-        cl_pad = jnp.concatenate([cl, jnp.zeros((1,), jnp.int32)])
-        # d_cand row of every STREAM position, fully vectorized in stream
-        # order — the pair's tile rides the key's high bits, its column
-        # is the in-segment offset, dead pairs carry the sentinel key.
-        # (Two rejected formulations, measured at 100k: a 1.4M-query
-        # searchsorted cost ~95 ms; flat-order random gathers ~50 ms.)
-        s_iota = jnp.arange(key_s.shape[0], dtype=jnp.int32)
-        dead_s = key_s == _INT32_MAX
-        t_s = jnp.minimum(key_s // shift, num_tiles)
-        c_loc = s_iota - offs[t_s]
-        is_loc = ~dead_s & (t_s < num_tiles) & (c_loc < cl_pad[t_s])
-        is_glb = ~dead_s & (t_s == num_tiles) & (c_loc < n_glob)
-        didx_s = jnp.where(
-            is_loc, t_s * total_c + n_glob + c_loc,
-            jnp.where(is_glb, num_tiles * total_c + c_loc,
-                      zero_row)).astype(jnp.int32)
-        # Undo the placement sort: keying by pre-sort position restores
-        # FLAT fan-out order, where every block is a contiguous reshape —
-        # slot j of splat i is row j·N + i, so no random access remains.
-        _, plan_flat = jax.lax.sort((pos_s, didx_s), num_keys=1)
-
-        nsl = narrow * narrow
-        has_wide = mtx > narrow or mty > narrow
-        wblock = mtx * mty * wlimit if has_wide else 0
-        gather_idx = jnp.concatenate(
-            [plan_flat[:nsl * n].reshape(nsl, n),
-             plan_flat[nsl * n + wblock:].reshape(1, n)], axis=0)
-        wide_idx = wide_ids = None
-        if has_wide:
-            wide_idx = plan_flat[nsl * n: nsl * n + wblock].reshape(
-                mtx * mty, wlimit)
-            wide_ids = jnp.where(wlive, wsafe, n)
-        grad_plan = GradPlan(gather_idx, wide_idx, wide_ids)
     return TileBinning(candidates, ntx, nty, local_overflow, global_overflow,
-                       counts, chunk_lb, grad_plan)
+                       counts, chunk_lb)

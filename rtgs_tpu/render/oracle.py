@@ -3,7 +3,7 @@
 This is the reference renderer's semantics re-expressed as one batched,
 differentiable JAX program. The reference peels depth layers with one kernel
 launch per layer, re-traversing a BVH each time
-(``/root/reference/src/rtgs/ray_tracer.py:79-104``); on TPU the same result is
+(the reference's ``src/rtgs/ray_tracer.py:79-104``); here the same result is
 computed in a single fused pass: intersect **all** Gaussians, take the K
 nearest entry points with ``lax.top_k``, and alpha-composite front-to-back
 with an exclusive cumulative product for transmittance.
@@ -53,8 +53,9 @@ def _safe_midpoint_alpha(gathered_cov_inv, gathered_means, gathered_opac,
     tbar_safe = jnp.where(valid & finite, tbar, 0.0)
     pos = origins + tbar_safe[..., None] * directions
     d = pos - gathered_means
-    # HIGHEST: ρ's exponent subtracts ~equal magnitudes; bf16 MXU inputs
-    # here broke the chip oracle at bench density (see gaussians.hit).
+    # HIGHEST: ρ's exponent subtracts ~equal magnitudes; bf16 or TF32
+    # matmul inputs here break the oracle at high density (see
+    # gaussians.hit).
     md = jnp.einsum("...ij,...j->...i", gathered_cov_inv, d,
                     precision=jax.lax.Precision.HIGHEST)
     rho = jnp.exp(-jnp.sum(d * md, axis=-1))
@@ -171,8 +172,12 @@ def render_oracle(g: G.Gaussians, camera: Camera, depth: int = 16,
         pixel_chunk = max(64, min(p, (1 << 25) // max(g.num, 1)))
     n_chunks = -(-p // pixel_chunk)
     pad = n_chunks * pixel_chunk - p
+    # Pad with copies of the last ray, not zeros: a zero direction makes
+    # the hit quadratic 0/0, and although the padded pixels are dropped,
+    # their NaN partials times a zero cotangent would poison the gradient.
     rays_p = jax.tree.map(
-        lambda x: jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1)), rays)
+        lambda x: jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1),
+                          mode="edge"), rays)
     chunked = jax.tree.map(
         lambda x: x.reshape((n_chunks, pixel_chunk) + x.shape[1:]), rays_p)
     radiance, _ = jax.lax.map(

@@ -2,7 +2,7 @@
 
 The reference sketches the recipe as TODOs (``/root/reference/src/rtgs/
 solver.py:22-42``: update camera params → rasterize → L1 + D-SSIM loss →
-optimize → adaptive density control); here it is a working TPU loop:
+optimize → adaptive density control); here it is a working loop:
 
   * raw (pre-activation) parameters in a :class:`SceneParams` pytree, the
     exact inverse of the loader's activations (``scene.py:103-114``), so
@@ -14,13 +14,15 @@ optimize → adaptive density control); here it is a working TPU loop:
   * adaptive density control with **static capacity**: clone/split/prune
     rewrite masked slots on the host between jitted steps, so the train
     step never recompiles until capacity grows;
-  * Orbax checkpointing of params + optimizer state.
+  * ``np.savez`` checkpoints of params + optimizer state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import pathlib
 from functools import partial
 from typing import NamedTuple, Optional, Sequence
 
@@ -297,8 +299,8 @@ class Solver:
         self.mask = jnp.asarray(mask.astype(np.float32))
         # Per-slot Adam moments: ZERO only the touched rows (new children,
         # split parents whose geometry changed, pruned slots); every
-        # untouched Gaussian keeps its momentum. (VERDICT r1 weak #4: a full
-        # optimizer reset every densify wipes Adam moments for all
+        # untouched Gaussian keeps its momentum. (A full optimizer reset
+        # every densify wipes Adam moments for all
         # parameters and is known to hurt 3DGS convergence.)
         self.opt_state = self._zero_opt_rows(np.asarray(touched))
         logger.info(
@@ -373,7 +375,7 @@ class Solver:
         inner["opacity_logits"] = fresh.inner_states["opacity_logits"]
         self.opt_state = self.opt_state._replace(inner_states=inner)
 
-    # ----- checkpointing (Orbax) -----
+    # ----- checkpointing (np.savez) -----
 
     def _opt_array_leaves(self):
         """Array leaves of the optimizer state, in tree order (non-array
@@ -382,39 +384,42 @@ class Solver:
         return [np.asarray(x) for x in jax.tree.leaves(self.opt_state)
                 if hasattr(x, "ndim")]
 
-    def save_checkpoint(self, directory):
-        import orbax.checkpoint as ocp
+    def checkpoint_path(self, directory, step: int) -> pathlib.Path:
+        return pathlib.Path(directory) / f"step_{step}.npz"
 
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(
-            f"{directory}/step_{self.step}",
-            {
-                "params": jax.tree.map(np.asarray, self.params)._asdict(),
-                "mask": np.asarray(self.mask),
-                "step": self.step,
-                "opt": {str(i): leaf
-                        for i, leaf in enumerate(self._opt_array_leaves())},
-            },
-            force=True,
-        )
-        ckptr.wait_until_finished()
+    def save_checkpoint(self, directory) -> pathlib.Path:
+        """Write params, mask, step and the optimizer's array leaves to
+        ``<directory>/step_<step>.npz`` (written to a temporary name, then
+        renamed, so a crash never leaves a truncated checkpoint)."""
+        path = self.checkpoint_path(directory, self.step)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        arrays = {f"params/{k}": np.asarray(v)
+                  for k, v in self.params._asdict().items()}
+        arrays["mask"] = np.asarray(self.mask)
+        arrays["step"] = np.asarray(self.step, np.int64)
+        for i, leaf in enumerate(self._opt_array_leaves()):
+            arrays[f"opt/{i}"] = leaf
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+        return path
 
     def restore_checkpoint(self, directory, step: int):
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        state = ckptr.restore(f"{directory}/step_{step}")
+        with np.load(self.checkpoint_path(directory, step)) as z:
+            state = {k: z[k] for k in z.files}
         self.params = SceneParams(**{
-            k: jnp.asarray(v) for k, v in state["params"].items()})
+            f: jnp.asarray(state[f"params/{f}"])
+            for f in SceneParams._fields})
         self.mask = jnp.asarray(state["mask"])
         self.step = int(state["step"])
         # Rehydrate optimizer state: fresh init gives the tree structure
         # (incl. MaskedNodes); saved array leaves slot back in tree order.
         fresh = self.optimizer.init(self.params)
         leaves, treedef = jax.tree.flatten(fresh)
-        saved = state.get("opt")
-        if saved is not None:
-            arr_iter = (saved[str(i)] for i in range(len(saved)))
+        n_saved = sum(k.startswith("opt/") for k in state)
+        if n_saved:
+            arr_iter = (state[f"opt/{i}"] for i in range(n_saved))
             leaves = [jnp.asarray(next(arr_iter)) if hasattr(x, "ndim")
                       else x for x in leaves]
         self.opt_state = jax.tree.unflatten(treedef, leaves)
@@ -434,8 +439,5 @@ class Solver:
                     self.num_live)
             if (self.cfg.checkpoint_every
                     and self.step % self.cfg.checkpoint_every == 0):
-                try:
-                    self.save_checkpoint(self.cfg.checkpoint_dir)
-                except Exception as e:  # pragma: no cover
-                    logger.warning("checkpoint failed: %s", e)
+                self.save_checkpoint(self.cfg.checkpoint_dir)
         return metrics

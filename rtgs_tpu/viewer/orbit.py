@@ -3,8 +3,8 @@
 host-side module: spherical ``(theta, phi, r)`` orbit around a movable 3D
 cursor, composed with a global scene rotation quaternion.
 
-The reference drives this from ``ti.GUI`` mouse events; on a TPU host there
-is no windowing, so the same state machine instead serves (a) the offline
+The reference drives this from ``ti.GUI`` mouse events; on an accelerator
+host there is no windowing, so the same state machine instead serves (a) the offline
 ``orbit`` CLI (turntable renders) and (b) the HTTP viewer
 (``rtgs_tpu/viewer/server.py``), which maps browser drag/scroll events to the
 same ``pan / move_cursor / zoom`` transitions.

@@ -1,4 +1,4 @@
-"""Interactive browser viewer — the TPU replacement for the reference's
+"""Interactive browser viewer — the replacement for the reference's
 ``ti.GUI`` window (``/root/reference/src/rtgs/__main__.py:154-258``).
 
 A dependency-free ``http.server`` serving a single-page client: the browser
@@ -6,7 +6,8 @@ sends the same orbit-camera events the reference's window handled (LMB drag
 = pan, RMB drag = move 3D cursor, wheel = zoom, three sliders = global scene
 rotation) to ``/event``; the server runs them through the same
 :class:`rtgs_tpu.viewer.orbit.OrbitState` machine, renders a frame on the
-accelerator, and streams JPEG/PNG frames from ``/frame``.
+accelerator, and streams PNG frames from ``/frame`` (encoded by the stdlib
+encoder in ``rtgs_tpu.utils.image``).
 
 Progressive sampling note: the reference accumulates identical deterministic
 samples (``ray_tracer.py:39-54`` with pixel-center rays), so a single render
@@ -16,7 +17,6 @@ only when the pose changes.
 
 from __future__ import annotations
 
-import io
 import json
 import logging
 import threading
@@ -123,30 +123,22 @@ class ViewerSession:
     def _render(self) -> bytes:
         from rtgs_tpu.camera import camera_from_fov, image_to_display
         from rtgs_tpu.render.api import render
-        from rtgs_tpu.utils.image import to_uint8
+        from rtgs_tpu.utils.image import encode_png, to_uint8
 
         pos, rot = self.state.camera_pose()
         cam = camera_from_fov(pos, rot, self.res, self.fov)
         img = render(self.g, cam, depth=self.depth,
                      renderer=self.renderer, **self.render_kwargs)
-        arr = to_uint8(np.asarray(image_to_display(img)))
-        buf = io.BytesIO()
-        try:
-            from PIL import Image
-
-            Image.fromarray(arr).save(buf, format="PNG")
-        except Exception:
-            import imageio.v3 as iio
-
-            iio.imwrite(buf, arr, extension=".png")
-        return buf.getvalue()
+        return encode_png(to_uint8(np.asarray(image_to_display(img))))
 
 
 def serve(g, args):
     """Entry point for the ``serve`` CLI command."""
+    from rtgs_tpu.__main__ import render_kwargs
+
     session = ViewerSession(
         g, res=args.res, fov=args.fov, depth=args.depth,
-        renderer=args.renderer)
+        renderer=args.renderer, render_kwargs=render_kwargs(args))
     session.state.r = args.radius
 
     class Handler(BaseHTTPRequestHandler):

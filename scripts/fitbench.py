@@ -40,14 +40,14 @@ def main():
     args = ap.parse_args()
     res = tuple(int(x) for x in args.res.split(","))
 
-    from rtgs_jax.utils.platform import enable_compilation_cache
+    from rtgs_tpu.utils.platform import enable_compilation_cache
     enable_compilation_cache()
-    from rtgs_jax.camera import camera_from_fov
-    from rtgs_jax.config import TrainConfig
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.train.datasets import synthetic_orbit_dataset
-    from rtgs_jax.train.solver import (Solver, init_params)
-    from rtgs_jax.viewer.orbit import orbit_camera_pose
+    from rtgs_tpu.camera import camera_from_fov
+    from rtgs_tpu.config import TrainConfig
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.train.datasets import synthetic_orbit_dataset
+    from rtgs_tpu.train.solver import (Solver, init_params)
+    from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
     render_kw = dict(max_candidates=args.cand, max_global=128)
     print(f"backend={jax.default_backend()} n={args.n} res={res} "

@@ -9,8 +9,8 @@ recovery-protocol ``fitbench.py`` never does.
 Protocol (self-supervised; no external dataset ships in this image):
 render ground-truth views of a structured 100k scene, then fit a model
 initialized from a 10k random subsample of the GT means (the same
-SfM-like seeding as ``rtgs-jax fit --from-scratch``,
-``rtgs_jax/__main__.py:264``) with clone/split/prune enabled.
+SfM-like seeding as ``rtgs-tpu fit --from-scratch``,
+``rtgs_tpu/__main__.py:264``) with clone/split/prune enabled.
 Reference contract: ``/root/reference/src/rtgs/solver.py:22-42`` (its
 stub names exactly this loop) and the 3DGS adaptive-density recipe its
 ``rasterizer.py:47-71`` gestures at.
@@ -60,12 +60,12 @@ def main():
     args = ap.parse_args()
     res = tuple(int(x) for x in args.res.split(","))
 
-    from rtgs_jax.utils.platform import enable_compilation_cache
+    from rtgs_tpu.utils.platform import enable_compilation_cache
     enable_compilation_cache()
-    from rtgs_jax.config import TrainConfig
-    from rtgs_jax.scene import load_scene, random_scene, save_scene
-    from rtgs_jax.train.datasets import synthetic_orbit_dataset
-    from rtgs_jax.train.solver import Solver, init_params_from_points
+    from rtgs_tpu.config import TrainConfig
+    from rtgs_tpu.scene import load_scene, random_scene, save_scene
+    from rtgs_tpu.train.datasets import synthetic_orbit_dataset
+    from rtgs_tpu.train.solver import Solver, init_params_from_points
 
     render_kw = dict(max_candidates=args.cand, max_global=128)
     print(f"backend={jax.default_backend()} gt={args.gt_n} "

@@ -6,7 +6,7 @@
 ``--check``: for bench.py's 100k@384p frame and one band of its 1M@1080p
 frame, compile the Pallas-Triton kernel, compare its keys with the XLA
 form (splat-id agreement, t1 difference), and time the kernel alone for a
-few ``num_warps``. The full run adds, for each config and each
+few values of ``peel.NUM_WARPS``. The full run adds, for each config and each
 implementation ("triton" — the kernel, "xla" — the lexicographic sort,
 "topk" — ``lax.top_k`` on the same t1 field), the forward render and the
 forward+backward step, each the median of ``--iters`` calls ended by
@@ -57,7 +57,7 @@ def peel_keys_topk(packed_feats, candidates, pix_feats, depth):
     import jax
     import jax.numpy as jnp
 
-    from rtgs_jax.ops.peel import _gather, _intersect_t1
+    from rtgs_tpu.ops.peel import _gather, _intersect_t1
 
     gathered, _ = _gather(packed_feats, candidates)
     t1 = _intersect_t1(gathered, pix_feats)
@@ -75,9 +75,9 @@ def setup(cfg):
     import numpy as np
 
     from bench import RENDER_KW
-    from rtgs_jax.camera import camera_from_fov
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.viewer.orbit import orbit_camera_pose
+    from rtgs_tpu.camera import camera_from_fov
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
     g = random_scene(jax.random.PRNGKey(0), cfg["n"], extent=2.0,
                      scale_range=(0.005, 0.03))
@@ -93,9 +93,10 @@ def check(cfg, iters):
     import jax.numpy as jnp
     import numpy as np
 
-    from rtgs_jax.ops.peel import CHUNK, peel_keys_triton, peel_keys_xla
-    from rtgs_jax.render.binning import tile_candidates
-    from rtgs_jax.render.tiled import (_tile_pixel_features, pack_features,
+    from rtgs_tpu.ops import peel
+    from rtgs_tpu.ops.peel import CHUNK, peel_keys_triton, peel_keys_xla
+    from rtgs_tpu.render.binning import tile_candidates
+    from rtgs_tpu.render.tiled import (_tile_pixel_features, pack_features,
                                        precompute_features)
 
     g, cam, kw = setup(cfg)
@@ -132,13 +133,19 @@ def check(cfg, iters):
                t1_rel_p99=float(np.quantile(rel, 0.99)) if rel.size else 0.0,
                nonfinite_winner_sid=int(
                    (np.isfinite(t1_k) & ~np.isfinite(sid_k)).sum()))
-    # Kernel alone, whole frame (no (T, P, C) array is built), per warps.
-    for warps in (2, 4, 8):
-        fn = jax.jit(lambda p, c, x, l, w=warps: peel_keys_triton(
-            p, c, x, depth, chunk_lb=l, num_warps=w))
-        first, med, _ = timed(lambda: fn(packed, b.candidates, pix,
-                                         b.chunk_lb), iters)
-        rec[f"kernel_frame_ms_w{warps}"] = med * 1e3
+    # Kernel alone, whole frame (no (T, P, C) array is built), per warps:
+    # a fresh jit per value, so each traces with the patched constant.
+    saved = peel.NUM_WARPS
+    try:
+        for warps in (2, 4, 8):
+            peel.NUM_WARPS = warps
+            fn = jax.jit(lambda p, c, x, l: peel_keys_triton(
+                p, c, x, depth, chunk_lb=l))
+            first, med, _ = timed(lambda: fn(packed, b.candidates, pix,
+                                             b.chunk_lb), iters)
+            rec[f"kernel_frame_ms_w{warps}"] = med * 1e3
+    finally:
+        peel.NUM_WARPS = saved
     xla = jax.jit(lambda p, c, x: peel_keys_xla(p, c, x, depth))
     _, med, _ = timed(lambda: xla(packed, cand, pix_b), iters)
     rec["xla_band_ms"] = med * 1e3
@@ -153,8 +160,8 @@ def end_to_end(cfg, impl, iters):
     import jax
     import jax.numpy as jnp
 
-    from rtgs_jax.ops import peel
-    from rtgs_jax.render.tiled import render_tiled_keys
+    from rtgs_tpu.ops import peel
+    from rtgs_tpu.render.tiled import render_tiled_keys
 
     g, cam, kw = setup(cfg)
     depth = cfg["depth"]
@@ -200,7 +207,7 @@ def main():
     import jax
 
     from bench import CONFIGS
-    from rtgs_jax.utils.platform import enable_compilation_cache
+    from rtgs_tpu.utils.platform import enable_compilation_cache
 
     dev = jax.devices()[0]
     if dev.platform != "gpu":

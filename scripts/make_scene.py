@@ -21,8 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 
-from rtgs_jax.gaussians import Gaussians
-from rtgs_jax.scene import save_scene
+from rtgs_tpu.gaussians import Gaussians
+from rtgs_tpu.scene import save_scene
 
 
 def structured_scene(n: int, seed: int = 0) -> Gaussians:

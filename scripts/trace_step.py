@@ -30,12 +30,12 @@ def main():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "bench_out", "rtgs_trace")
 
-    from rtgs_jax.utils.platform import enable_compilation_cache
+    from rtgs_tpu.utils.platform import enable_compilation_cache
     enable_compilation_cache()
-    from rtgs_jax.config import TrainConfig
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.train.datasets import synthetic_orbit_dataset
-    from rtgs_jax.train.solver import Solver, init_params
+    from rtgs_tpu.config import TrainConfig
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.train.datasets import synthetic_orbit_dataset
+    from rtgs_tpu.train.solver import Solver, init_params
 
     g = random_scene(jax.random.PRNGKey(0), n, extent=2.0,
                      scale_range=(0.005, 0.03))

@@ -11,7 +11,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rtgs_jax.utils.platform import (enable_compilation_cache,  # noqa: E402
+from rtgs_tpu.utils.platform import (enable_compilation_cache,  # noqa: E402
                                      force_cpu_devices)
 
 ON_GPU = bool(os.environ.get("RTGS_TEST_GPU"))

@@ -63,7 +63,7 @@ EPS_FD = 1e-5
 
 
 # --------------------------------------------------------------------------
-# Standalone PLY I/O (independent of rtgs_jax.io.ply on purpose).
+# Standalone PLY I/O (independent of rtgs_tpu.io.ply on purpose).
 # --------------------------------------------------------------------------
 
 PROPS = (["x", "y", "z", "nx", "ny", "nz"]

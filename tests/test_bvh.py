@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rtgs_jax import gaussians as G
-from rtgs_jax.bvh import LBVH, build_lbvh, bvh_hit, morton_codes
-from rtgs_jax.rays import new_rays
-from rtgs_jax.scene import random_scene
+from rtgs_tpu import gaussians as G
+from rtgs_tpu.bvh import LBVH, build_lbvh, bvh_hit, morton_codes
+from rtgs_tpu.rays import new_rays
+from rtgs_tpu.scene import random_scene
 
 
 def test_morton_orders_locality():

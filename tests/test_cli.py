@@ -1,5 +1,5 @@
 """End-to-end CLI tests (the reference exposes its app surface through
-``__main__``; ours is ``rtgs_jax.__main__`` with subcommands — render /
+``__main__``; ours is ``rtgs_tpu.__main__`` with subcommands — render /
 orbit / bench / serve / fit)."""
 
 import pathlib
@@ -8,8 +8,8 @@ import jax
 import numpy as np
 import pytest
 
-from rtgs_jax.__main__ import main
-from rtgs_jax.scene import load_scene, random_scene, save_scene
+from rtgs_tpu.__main__ import main
+from rtgs_tpu.scene import load_scene, random_scene, save_scene
 
 
 @pytest.fixture
@@ -78,7 +78,7 @@ def test_cli_serve_http_roundtrip(scene_path):
 
     import argparse
 
-    from rtgs_jax.viewer import server as vsrv
+    from rtgs_tpu.viewer import server as vsrv
 
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -104,7 +104,7 @@ def test_cli_serve_http_roundtrip(scene_path):
         raise RuntimeError("server did not come up")
 
     page = get("/")
-    assert b"rtgs-jax viewer" in page
+    assert b"rtgs-tpu viewer" in page
     frame0 = get("/frame?v=0")
     assert frame0[:8] == b"\x89PNG\r\n\x1a\n"
 

@@ -5,9 +5,9 @@ adds covariance/AABB/SH checks the reference lacks (SURVEY.md §4 gaps)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rtgs_jax import gaussians as G
-from rtgs_jax.rays import new_rays
-from rtgs_jax.utils import quaternion as quat
+from rtgs_tpu import gaussians as G
+from rtgs_tpu.rays import new_rays
+from rtgs_tpu.utils import quaternion as quat
 
 
 def test_ctor_defaults():

@@ -1,7 +1,7 @@
 """Keys-only render path: the selection (the Pallas-Triton kernel, here in
 interpret mode, or its XLA form) picks per-pixel winner (t1, splat id) keys;
 XLA shades + composites the winners and provides the backward by autodiff
-(rtgs_jax/ops/peel.py, rtgs_jax/render/tiled.py:shade_winners_kp). Must
+(rtgs_tpu/ops/peel.py, rtgs_tpu/render/tiled.py:shade_winners_kp). Must
 match the XLA tiled path and the oracle (same selection order, same math,
 different execution)."""
 
@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rtgs_jax.camera import camera_from_fov
-from rtgs_jax.render.oracle import render_oracle
-from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
-from rtgs_jax.scene import random_scene
-from rtgs_jax.viewer.orbit import orbit_camera_pose
+from rtgs_tpu.camera import camera_from_fov
+from rtgs_tpu.render.oracle import render_oracle
+from rtgs_tpu.render.tiled import render_tiled, render_tiled_keys
+from rtgs_tpu.scene import random_scene
+from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
 
 def _orbit_cam(res, theta=0.3, phi=1.2, r=3.0, fov=60.0):
@@ -66,9 +66,9 @@ def test_keys_bands_identical(key):
 def test_keys_kernel_interpret_matches_xla(key):
     """The Pallas keys kernel (interpret mode) against the lax.sort
     formulation: identical keys incl. vacancy and tie order."""
-    from rtgs_jax.ops.peel import CHUNK, peel_keys_triton, peel_keys_xla
-    from rtgs_jax.render.binning import tile_candidates
-    from rtgs_jax.render.tiled import (_tile_pixel_features, pack_features,
+    from rtgs_tpu.ops.peel import CHUNK, peel_keys_triton, peel_keys_xla
+    from rtgs_tpu.render.binning import tile_candidates
+    from rtgs_tpu.render.tiled import (_tile_pixel_features, pack_features,
                                        precompute_features)
 
     g = random_scene(key, 300, extent=1.0)
@@ -102,13 +102,24 @@ def test_keys_kernel_interpret_matches_xla(key):
     assert (np.abs(a[fin] - b[fin]) <= slack[fin]).all()
 
 
-def test_keys_gradients_match_tiled(key):
+@pytest.mark.parametrize("wide", [False, True])
+def test_keys_gradients_match_tiled(key, wide):
     """Autodiff through shade_winners must equal autodiff through the
     all-candidates tiled path (identical selection ⇒ identical piecewise-
-    smooth function)."""
-    g = random_scene(key, 200, extent=1.0)
-    cam = _orbit_cam((32, 32))
-    kw = dict(depth=8, tile=(16, 16), max_candidates=256, max_global=32)
+    smooth function). ``wide``: big scales force the wide fan-out and the
+    global list, so winners come from every kind of candidate slot."""
+    if wide:
+        g = random_scene(key, 300, extent=0.5, scale_range=(0.02, 0.35))
+        cam = _orbit_cam((48, 32), r=2.0)
+        kw = dict(depth=8, tile=(16, 16), max_candidates=512,
+                  max_global=64, bin_narrow=2)
+        _, stats = render_tiled_keys(g, cam, with_stats=True, **kw)
+        assert int(stats["local_overflow"]) == 0, stats
+        assert int(stats["global_overflow"]) == 0, stats
+    else:
+        g = random_scene(key, 200, extent=1.0)
+        cam = _orbit_cam((32, 32))
+        kw = dict(depth=8, tile=(16, 16), max_candidates=256, max_global=32)
 
     def loss_keys(gg):
         return jnp.sum(render_tiled_keys(gg, cam, **kw) ** 2)
@@ -161,10 +172,10 @@ def test_early_termination_exact(key):
     fed ``chunk_lb`` returns bitwise-identical keys to the bound-free full
     sweep, and the bound itself must be sound — every candidate in chunk c
     or later has t1 >= chunk_lb[c]."""
-    from rtgs_jax.ops.peel import (CHUNK, peel_keys_triton, _gather,
+    from rtgs_tpu.ops.peel import (CHUNK, peel_keys_triton, _gather,
                                    _intersect_t1)
-    from rtgs_jax.render.binning import tile_candidates
-    from rtgs_jax.render.tiled import (_tile_pixel_features, pack_features,
+    from rtgs_tpu.render.binning import tile_candidates
+    from rtgs_tpu.render.tiled import (_tile_pixel_features, pack_features,
                                        precompute_features)
 
     # Deep scene: enough splats per tile that several chunks exist.
@@ -232,58 +243,46 @@ def test_keys_grad_through_pallas_impl(key):
         assert rel.max() < 1e-4, (name, rel.max())
 
 
-def test_grad_plan_matches_segment_sum(key):
-    """The gather-form gradient accumulation (GradPlan: mask-matmul +
-    per-splat gather) must equal the segment_sum form (grad_map=False,
-    the banded/sharded fallback) — same d_cand, different placement of
-    the final per-splat reduction."""
-    g = random_scene(key, 400, extent=0.8, scale_range=(0.01, 0.06))
+@pytest.mark.parametrize("n,scales", [(20, (0.005, 0.05)),
+                                      (600, (0.1, 0.3))])
+def test_shade_vjp_matches_autodiff(key, n, scales):
+    """The hand-written shading VJP (one dense cotangent stack, scatter-
+    added per splat) equals autodiff of the same forward, for random
+    cotangents on every layer: with 20 small splats nearly every winner
+    slot is vacant (the sentinel row), with 600 large ones most are
+    filled."""
+    from rtgs_tpu.ops.peel import peel_keys
+    from rtgs_tpu.render.binning import tile_candidates
+    from rtgs_tpu.render.tiled import (_shade_kp_impl, _tile_pixel_features,
+                                       pack_features, precompute_features,
+                                       shade_winners_kp)
+
+    g = random_scene(key, n, extent=1.0, scale_range=scales)
     cam = _orbit_cam((32, 32))
-    kw = dict(depth=8, tile=(16, 16), max_candidates=256, max_global=32)
+    b = tile_candidates(g, cam, tile=(16, 16), max_candidates=640,
+                        max_global=64)
+    packed = pack_features(precompute_features(g, cam))
+    pix = _tile_pixel_features(cam, (16, 16))
+    _, sid = peel_keys(packed, b.candidates, pix, 8, out_layout="kp")
+    vacant = float(np.mean(~np.isfinite(np.asarray(sid))))
+    assert (vacant > 0.9) if n == 20 else (vacant < 0.5), vacant
 
-    def loss(gm):
-        def f(gg):
-            return jnp.sum(render_tiled_keys(
-                gg, cam, grad_map=gm, **kw) ** 2)
-        return f
-
-    gp = jax.grad(loss(True))(g)
-    gs = jax.grad(loss(False))(g)
-    for name in ["means", "quats", "scales", "colors", "opacities", "sh"]:
-        a = np.asarray(getattr(gp, name))
-        b = np.asarray(getattr(gs, name))
-        assert np.isfinite(a).all(), name
-        rel = np.abs(a - b) / (np.abs(b).max() + 1e-8)
-        assert rel.max() < 1e-5, (name, rel.max())
-
-
-def test_grad_plan_wide_class(key):
-    """GradPlan with wide-class splats in play: big scales force the
-    wide fan-out (and the global list), exercising wide_idx/wide_ids."""
-    g = random_scene(key, 300, extent=0.5, scale_range=(0.02, 0.35))
-    cam = _orbit_cam((48, 32), r=2.0)
-    kw = dict(depth=8, tile=(16, 16), max_candidates=512, max_global=64,
-              bin_narrow=2)
-
-    def loss(gm):
-        def f(gg):
-            return jnp.sum(render_tiled_keys(
-                gg, cam, grad_map=gm, **kw) ** 2)
-        return f
-
-    gp = jax.grad(loss(True))(g)
-    gs = jax.grad(loss(False))(g)
-    for name in ["means", "scales", "colors"]:
-        a = np.asarray(getattr(gp, name))
-        b = np.asarray(getattr(gs, name))
-        assert np.isfinite(a).all(), name
-        rel = np.abs(a - b) / (np.abs(b).max() + 1e-8)
-        assert rel.max() < 1e-5, (name, rel.max())
+    out, vjp_custom = jax.vjp(lambda x: shade_winners_kp(x, sid, pix),
+                              packed)
+    _, vjp_auto = jax.vjp(lambda x: _shade_kp_impl(x, sid, pix)[0], packed)
+    cots = tuple(jax.random.normal(jax.random.fold_in(key, i), o.shape)
+                 for i, o in enumerate(out))
+    (d_custom,), (d_auto,) = vjp_custom(cots), vjp_auto(cots)
+    # Row N is the sentinel, whose gradient the renderer discards.
+    a, b = np.asarray(d_custom)[:n], np.asarray(d_auto)[:n]
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a, b, rtol=1e-4,
+                               atol=1e-5 * np.abs(b).max())
 
 
 def test_banded_gradients_match_unbanded(key):
-    """jax.grad through the BANDED path (lax.map + jax.checkpoint remat +
-    the segment_sum backward — the 1M@1080p program family) must match
+    """jax.grad through the BANDED path (lax.map + jax.checkpoint remat —
+    the 1M@1080p program family) must match
     the unbanded gradient: banding partitions tiles, nothing else."""
     g = random_scene(key, 400, extent=0.8, scale_range=(0.01, 0.06))
     cam = _orbit_cam((48, 48))
@@ -297,7 +296,7 @@ def test_banded_gradients_match_unbanded(key):
 
     gb = jax.grad(loss(3))(g)
     gu = jax.grad(loss(None))(g)
-    # Not exact: per-band segment_sums accumulate partial per-splat sums
+    # Not exact: per-band scatter-adds accumulate partial per-splat sums
     # that the unbanded path adds in one pass — a floating-point
     # reassociation, amplified where a splat's contributions nearly
     # cancel (quats). Same normalized-quantile tolerance as the other

@@ -4,7 +4,7 @@ import os
 import sys
 import time
 
-from rtgs_jax.parallel.launcher import HEARTBEAT_ENV, launch
+from rtgs_tpu.parallel.launcher import HEARTBEAT_ENV, launch
 
 
 def _worker(code: str):

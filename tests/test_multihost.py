@@ -2,7 +2,7 @@
 
 Launches two REAL OS processes, each a separate JAX "host" with 2 virtual
 CPU devices, connects them with ``jax.distributed.initialize`` (the exact
-call a multi-process GPU job makes, via ``rtgs_jax.parallel.mesh
+call a multi-process GPU job makes, via ``rtgs_tpu.parallel.mesh
 .initialize_distributed``), builds one global 4-device ``(rays=2, prims=2)``
 mesh spanning both processes, and renders a tiny scene through the sharded
 production path. Process 0 checks the result against a single-process
@@ -33,7 +33,7 @@ sys.path.insert(0, os.environ["RTGS_REPO"])
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 
-from rtgs_jax.parallel.mesh import initialize_distributed
+from rtgs_tpu.parallel.mesh import initialize_distributed
 
 initialize_distributed()  # reads JAX_COORDINATOR_ADDRESS etc. from env
 
@@ -44,11 +44,11 @@ assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 4, len(jax.devices())  # global across processes
 assert len(jax.local_devices()) == 2
 
-from rtgs_jax.parallel.mesh import make_mesh, PRIMS_AXIS, RAYS_AXIS
-from rtgs_jax.parallel.render import render_tiled_sharded, shard_scene
-from rtgs_jax.render.tiled import render_tiled_keys
-from rtgs_jax.camera import camera_from_fov
-from rtgs_jax.scene import random_scene
+from rtgs_tpu.parallel.mesh import make_mesh, PRIMS_AXIS, RAYS_AXIS
+from rtgs_tpu.parallel.render import render_tiled_sharded, shard_scene
+from rtgs_tpu.render.tiled import render_tiled_keys
+from rtgs_tpu.camera import camera_from_fov
+from rtgs_tpu.scene import random_scene
 
 
 mesh = make_mesh(2, 2)

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from rtgs_jax.io import native
-from rtgs_jax.io.ply import read_ply, write_ply
+from rtgs_tpu.io import native
+from rtgs_tpu.io.ply import read_ply, write_ply
 
 
 @pytest.mark.skipif(not native.available(), reason="native codec unavailable")

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rtgs_jax.parallel.mesh import PRIMS_AXIS, RAYS_AXIS, make_mesh
-from rtgs_jax.parallel.render import render_sharded, shard_scene
-from rtgs_jax.rays import new_rays
-from rtgs_jax.render.oracle import composite_rays
-from rtgs_jax.scene import pad_scene, random_scene
+from rtgs_tpu.parallel.mesh import PRIMS_AXIS, RAYS_AXIS, make_mesh
+from rtgs_tpu.parallel.render import render_sharded, shard_scene
+from rtgs_tpu.rays import new_rays
+from rtgs_tpu.render.oracle import composite_rays
+from rtgs_tpu.scene import pad_scene, random_scene
 
 
 def _rays(n, key):
@@ -75,8 +75,8 @@ def test_sharded_training_step(key):
     iterations on a toy fit."""
     import optax
 
-    from rtgs_jax.config import TrainConfig
-    from rtgs_jax.train.solver import activate, init_params, make_optimizer
+    from rtgs_tpu.config import TrainConfig
+    from rtgs_tpu.train.solver import activate, init_params, make_optimizer
 
     target_scene = random_scene(key, 32, extent=0.8)
     rays = _rays(64, jax.random.fold_in(key, 3))
@@ -97,7 +97,7 @@ def test_sharded_training_step(key):
     def step(params, opt_state):
         def loss_fn(p):
             g = activate(p, mask)
-            from rtgs_jax.scene import pad_scene as _pad
+            from rtgs_tpu.scene import pad_scene as _pad
 
             gs = jax.tree.map(lambda x: x, _pad(g, 4))
             rad, _ = render_sharded(gs, rays, 8, mesh)
@@ -121,8 +121,8 @@ def test_tiled_sharded_matches_single_device(key, n_rays, n_prims):
     architecture as the single-device path == single-device keys render,
     tightly; and the all-candidates XLA twin within the documented
     summation-order tolerance."""
-    from rtgs_jax.parallel.render import render_tiled_sharded
-    from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
+    from rtgs_tpu.parallel.render import render_tiled_sharded
+    from rtgs_tpu.render.tiled import render_tiled, render_tiled_keys
     from tests.test_tiled import _orbit_cam
     from tests._utils import assert_images_close
 
@@ -149,8 +149,8 @@ def test_tiled_sharded_gradients(key):
     """Scene gradients through the sharded production path == single-device
     keys-path gradients (selection through the Pallas kernel, interpret
     mode)."""
-    from rtgs_jax.parallel.render import render_tiled_sharded
-    from rtgs_jax.render.tiled import render_tiled_keys
+    from rtgs_tpu.parallel.render import render_tiled_sharded
+    from rtgs_tpu.render.tiled import render_tiled_keys
     from tests.test_tiled import _orbit_cam
 
     g = random_scene(key, 96, extent=1.0)

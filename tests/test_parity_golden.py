@@ -43,10 +43,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rtgs_jax.camera import camera_from_fov
-from rtgs_jax.render.oracle import render_oracle
-from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
-from rtgs_jax.scene import load_scene
+from rtgs_tpu.camera import camera_from_fov
+from rtgs_tpu.render.oracle import render_oracle
+from rtgs_tpu.render.tiled import render_tiled, render_tiled_keys
+from rtgs_tpu.scene import load_scene
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 

@@ -20,7 +20,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 def test_compile_cache_dir_rule(tmp_path, monkeypatch, env_dir):
     """$JAX_COMPILATION_CACHE_DIR wins and no other directory is set;
     without it the cache is the fixed in-checkout .jax_cache."""
-    from rtgs_jax.utils import platform
+    from rtgs_tpu.utils import platform
 
     before = jax.config.jax_compilation_cache_dir
     try:
@@ -41,7 +41,7 @@ def test_compile_cache_dir_rule(tmp_path, monkeypatch, env_dir):
 
 @pytest.mark.parametrize("shape", [(5, 7), (9, 4, 3), (3, 8, 4)])
 def test_png_roundtrip(tmp_path, shape):
-    from rtgs_jax.utils.image import decode_png, encode_png, load_image
+    from rtgs_tpu.utils.image import decode_png, encode_png, load_image
 
     arr = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
     data = encode_png(arr)
@@ -64,7 +64,7 @@ def _hide_modules(monkeypatch, *names):
 
 
 def test_save_image_writes_png_without_image_packages(tmp_path, monkeypatch):
-    from rtgs_jax.utils.image import decode_png, save_image
+    from rtgs_tpu.utils.image import decode_png, save_image
 
     _hide_modules(monkeypatch, "PIL", "imageio")
     img = np.random.default_rng(1).uniform(size=(6, 10, 3))
@@ -84,9 +84,9 @@ def test_serve_frame_without_image_packages(tmp_path, monkeypatch):
     import time
     import urllib.request
 
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.utils.image import decode_png
-    from rtgs_jax.viewer import server as vsrv
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.utils.image import decode_png
+    from rtgs_tpu.viewer import server as vsrv
 
     _hide_modules(monkeypatch, "PIL", "imageio")
     s = socket.socket()
@@ -111,11 +111,11 @@ def test_serve_frame_without_image_packages(tmp_path, monkeypatch):
 
 
 def test_checkpoint_roundtrip_without_orbax(tmp_path, monkeypatch, key):
-    from rtgs_jax.camera import camera_from_fov
-    from rtgs_jax.config import TrainConfig
-    from rtgs_jax.render.oracle import render_oracle
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.train.solver import Solver, init_params
+    from rtgs_tpu.camera import camera_from_fov
+    from rtgs_tpu.config import TrainConfig
+    from rtgs_tpu.render.oracle import render_oracle
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.train.solver import Solver, init_params
 
     _hide_modules(monkeypatch, "orbax")
     gt = random_scene(key, 12, extent=0.5)
@@ -140,7 +140,7 @@ def test_checkpoint_roundtrip_without_orbax(tmp_path, monkeypatch, key):
 
 
 def test_launcher_gives_each_rank_one_card(tmp_path):
-    from rtgs_jax.parallel.launcher import launch, rank_devices
+    from rtgs_tpu.parallel.launcher import launch, rank_devices
 
     assert rank_devices({}, 0) == "0" and rank_devices({}, 3) == "3"
     assert rank_devices({"CUDA_VISIBLE_DEVICES": "4,5,6"}, 1) == "5"

@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rtgs_jax.camera import camera_from_fov
-from rtgs_jax.render.api import (ProgressiveSampler, render,
+from rtgs_tpu.camera import camera_from_fov
+from rtgs_tpu.render.api import (ProgressiveSampler, render,
                                  render_progressive)
-from rtgs_jax.scene import random_scene
-from rtgs_jax.viewer.orbit import orbit_camera_pose
+from rtgs_tpu.scene import random_scene
+from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
 
 def _orbit_cam(res, theta=0.3, phi=1.2, r=3.0, fov=60.0):
@@ -70,8 +70,8 @@ def test_jittered_sampling_antialiases(key):
 def test_cli_sample_flag(tmp_path, key):
     """-s N with the deterministic renderer must produce the same PNG as
     -s 1 (documented deviation: flag honored, samples identical)."""
-    from rtgs_jax.__main__ import main
-    from rtgs_jax.scene import save_scene
+    from rtgs_tpu.__main__ import main
+    from rtgs_tpu.scene import save_scene
 
     ply = tmp_path / "s.ply"
     save_scene(ply, random_scene(key, 64, extent=0.5))

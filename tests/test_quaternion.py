@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rtgs_jax.utils import quaternion as quat
+from rtgs_tpu.utils import quaternion as quat
 
 
 def test_mul_hand_computed():

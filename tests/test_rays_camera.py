@@ -4,15 +4,15 @@ defaults, get()) plus pinhole conventions the reference leaves untested."""
 import numpy as np
 import jax.numpy as jnp
 
-from rtgs_jax.camera import (
+from rtgs_tpu.camera import (
     camera_from_fov,
     generate_ray,
     generate_ray_grid,
     image_to_display,
     new_camera,
 )
-from rtgs_jax.rays import new_rays
-from rtgs_jax.utils import quaternion as quat
+from rtgs_tpu.rays import new_rays
+from rtgs_tpu.utils import quaternion as quat
 
 
 def test_ray_defaults():

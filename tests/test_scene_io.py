@@ -7,9 +7,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from rtgs_jax import gaussians as G
-from rtgs_jax.io.ply import read_ply, write_ply
-from rtgs_jax.scene import (
+from rtgs_tpu import gaussians as G
+from rtgs_tpu.io.ply import read_ply, write_ply
+from rtgs_tpu.scene import (
     inverse_sigmoid,
     load_scene,
     pad_scene,
@@ -89,7 +89,7 @@ def test_load_scene_reference_flat_layout(tmp_path):
 
 
 def test_scene_roundtrip_through_save(tmp_path, key):
-    from rtgs_jax.scene import random_scene
+    from rtgs_tpu.scene import random_scene
 
     g = random_scene(key, 25)
     out = tmp_path / "saved.ply"
@@ -122,7 +122,7 @@ def test_reference_fixture_parses():
 
 
 def test_pad_scene(key):
-    from rtgs_jax.scene import random_scene
+    from rtgs_tpu.scene import random_scene
 
     g = random_scene(key, 10)
     gp = pad_scene(g, 8)
@@ -141,7 +141,7 @@ def test_sigmoid_inverse():
 def test_splt_roundtrip(tmp_path, key):
     """.splt (antimatter15 .splat layout) save -> load round-trip. The
     format quantizes colors/opacity/quats to u8 and drops SH."""
-    from rtgs_jax.scene import load_scene, random_scene, save_scene
+    from rtgs_tpu.scene import load_scene, random_scene, save_scene
 
     g = random_scene(key, 40, extent=0.8)
     p = tmp_path / "scene.splt"

@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rtgs_jax import gaussians as G
-from rtgs_jax.camera import camera_from_fov, new_camera
-from rtgs_jax.render.binning import tile_candidates
-from rtgs_jax.render.oracle import render_oracle
-from rtgs_jax.render.tiled import render_tiled
-from rtgs_jax.scene import random_scene
-from rtgs_jax.viewer.orbit import orbit_camera_pose
+from rtgs_tpu import gaussians as G
+from rtgs_tpu.camera import camera_from_fov, new_camera
+from rtgs_tpu.render.binning import tile_candidates
+from rtgs_tpu.render.oracle import render_oracle
+from rtgs_tpu.render.tiled import render_tiled
+from rtgs_tpu.scene import random_scene
+from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
 
 def _orbit_cam(res, theta=0.3, phi=1.2, r=3.0, fov=60.0):
@@ -34,7 +34,7 @@ def test_binning_covers_all_hitting_gaussians(key):
     assert int(binning.local_overflow) == 0
     assert int(binning.global_overflow) == 0
 
-    from rtgs_jax.camera import generate_ray_grid
+    from rtgs_tpu.camera import generate_ray_grid
 
     rays = generate_ray_grid(cam)
     cov_inv = G.inv_covariance(g.quats, g.scales)
@@ -151,7 +151,7 @@ def test_bitwise_determinism(key):
     """SURVEY §5: XLA's substitute for race detection — the same render
     twice must be bitwise identical (no atomics, no nondeterministic
     reductions anywhere in the pipeline)."""
-    from rtgs_jax.render.tiled import render_tiled_keys
+    from rtgs_tpu.render.tiled import render_tiled_keys
 
     g = random_scene(key, 300, extent=1.0)
     cam = _orbit_cam((64, 48))
@@ -179,12 +179,12 @@ def test_million_splat_crop_matches_oracle():
     scene is full-size."""
     import jax
 
-    from rtgs_jax.camera import camera_from_fov
-    from rtgs_jax.render.binning import tile_candidates
-    from rtgs_jax.render.oracle import render_oracle
-    from rtgs_jax.render.tiled import render_tiled, render_tiled_keys
-    from rtgs_jax.scene import random_scene
-    from rtgs_jax.viewer.orbit import orbit_camera_pose
+    from rtgs_tpu.camera import camera_from_fov
+    from rtgs_tpu.render.binning import tile_candidates
+    from rtgs_tpu.render.oracle import render_oracle
+    from rtgs_tpu.render.tiled import render_tiled, render_tiled_keys
+    from rtgs_tpu.scene import random_scene
+    from rtgs_tpu.viewer.orbit import orbit_camera_pose
 
     n = 1_000_000
     g = random_scene(jax.random.PRNGKey(0), n, extent=2.0,
